@@ -1,7 +1,7 @@
-"""kaldi_aslp_tpu — a TPU-native hybrid-ASR framework.
+"""kaldi_aslp_tpu — a JAX-native hybrid-ASR framework.
 
 A from-scratch re-design of the capabilities of robin1001/kaldi-aslp
-(nnet1-era hybrid HMM/NN + CTC speech recognition toolkit) for TPU:
+(nnet1-era hybrid HMM/NN + CTC speech recognition toolkit) in JAX:
 
 - compute path: JAX / XLA / Pallas, jit + shard_map over device meshes
 - model zoo: DNN / CNN / LSTM(P) / BLSTM / LC-BLSTM / GRU / CIFG-LSTM /

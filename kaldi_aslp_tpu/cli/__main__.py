@@ -161,4 +161,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from kaldi_aslp_tpu.utils.jax_setup import configure_compile_cache
+
+    configure_compile_cache()
     sys.exit(main())

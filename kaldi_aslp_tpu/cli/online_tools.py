@@ -1,6 +1,6 @@
 """Online serving CLI mains.
 
-TPU-native equivalents of the reference server/client binaries
+JAX-native equivalents of the reference server/client binaries
 (reference: src/aslp-onlinebin/aslp-online-nnet-vad-server.cc:33-130,
 aslp-online-energy-vad-server.cc, aslp-audio-provider-client.cc).
 The socket protocol is the framework's own (int16-LE PCM in, one JSON

@@ -1,12 +1,12 @@
 """Data-parallel trainer worker CLIs.
 
-TPU-native equivalents of the reference MPI worker binaries
+JAX-native equivalents of the reference MPI worker binaries
 (reference: src/aslp-parallelbin/aslp-nnet-train-frame-worker.cc,
 aslp-nnet-train-lstm-stream-worker.cc:126-189 — worker selected by
 --worker-type, params synced every --sync-period frames;
 aslp-nnet-train-server.cc runs the parameter-server side).
 
-On TPU the MPI ranks become devices of a jax mesh in ONE process:
+Here the MPI ranks become devices of a jax mesh in ONE process:
   bsp  — gradient psum every step over the 'data' axis (bsp-worker.cc
          model averaging, sync_period = minibatch)
   bmuf — local SGD inside blocks + block-momentum sync across a
@@ -257,13 +257,13 @@ def nnet_train_worker(argv):
 
 def nnet_train_server(argv):
     """Parameter-server role (reference: aslp-nnet-train-server.cc for
-    easgd/asgd/masgd).  On TPU the server is fused into the worker
+    easgd/asgd/masgd).  Here the server is fused into the worker
     program: synchronous modes need no server (psum IS the server), and
     the asynchronous modes run their server sync loop as a sequential
     scan inside the worker step (parallel/ps.py)."""
     parse_options(argv, [], "aslp-nnet-train-server", 0, None)
     print(
-        "aslp-nnet-train-server: no separate server process on TPU — "
+        "aslp-nnet-train-server: no separate server process — "
         "the server role is fused into the worker program.\n"
         "  bsp/sod          -> the psum collective is the server "
         "(aslp-nnet-train-*-worker --worker-type=bsp|sod)\n"

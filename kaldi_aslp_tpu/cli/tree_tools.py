@@ -1,6 +1,6 @@
 """Tree / CD-phone / graph-prep CLI tools.
 
-TPU-native equivalents of the reference CD-phone binary family
+JAX-native equivalents of the reference CD-phone binary family
 (reference: src/aslp-bin/aslp-acc-tree-stats-cd-phone-{equal,kmeans,
 viterbi}.cc, aslp-acc-tree-stats-phone-{mean,mean-per-frame,median}.cc,
 aslp-compile-questions-phone.cc, aslp-tree-bind-info.cc,

@@ -4,7 +4,7 @@ The reference's trainers block on ark reads + GPU staging between
 minibatches (reference: aslp-nnet-train-simple.cc:165-251 — the outer
 loop reads tables, fixes lengths, then AddData copies host→device
 before any compute can start; CUDA overlap exists only inside cuBLAS).
-On TPU the idiomatic form is a double-buffered loader: a worker thread
+Here the idiomatic form is a double-buffered loader: a worker thread
 assembles the next host batch and starts its ``jax.device_put`` while
 the device is still executing the current step, so the input pipeline
 cost disappears behind compute (the gap between corpus-fed and

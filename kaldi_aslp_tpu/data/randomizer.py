@@ -1,6 +1,6 @@
 """Frame-level shuffling randomizer.
 
-TPU-native equivalent of the reference randomizer family (reference:
+JAX-native equivalent of the reference randomizer family (reference:
 src/aslp-nnet/nnet-randomizer.h:34-143 — MatrixRandomizer /
 VectorRandomizer / PosteriorRandomizer pooling ~32k frames, shuffling by a
 shared mask, emitting fixed-size minibatches; defaults

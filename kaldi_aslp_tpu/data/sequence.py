@@ -1,7 +1,7 @@
 """Sequence data readers: multi-stream truncated-BPTT chunks and
 whole-utterance CTC stream batches.
 
-TPU-native equivalents of the reference sequence path (reference:
+JAX-native equivalents of the reference sequence path (reference:
 src/aslp-nnet/data-reader.{h,cc} SequenceDataReader — N parallel utterance
 streams, truncated-BPTT chunks of batch_size frames with per-stream
 cursors, new_utt_flags for state reset, target delay, frame skipping,
@@ -169,7 +169,7 @@ def _round_up(n: int, m: int) -> int:
 
 class CtcBatcher:
     """Whole-utterance batches for CTC training (reference:
-    aslp-nnet-train-ctc-streams.cc:118-204 stream filling, plus TPU
+    aslp-nnet-train-ctc-streams.cc:118-204 stream filling, plus shape
     bucketing: T and U are padded to multiples so XLA compiles a small
     number of shapes instead of one per batch)."""
 

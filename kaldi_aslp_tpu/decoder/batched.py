@@ -1,8 +1,8 @@
 """Batched decoding: many utterances through one jitted Viterbi.
 
-TPU-native equivalent of the reference's decode-time parallelism
+JAX-native equivalent of the reference's decode-time parallelism
 (reference: run.pl JOB=1:nj ark-sharded latgen-faster-mapped processes +
-latgen-faster-mapped-parallel --num-threads, decode.sh:93-134).  On TPU
+latgen-faster-mapped-parallel --num-threads, decode.sh:93-134).  Here
 the parallel axis is the batch: utterances are padded to a shared
 T bucket and the dense Viterbi scan is vmapped over the batch, so one
 device pass decodes the whole batch; host backtrace per utterance.

@@ -2,7 +2,7 @@
 conversion from the internal time-synchronous lattice, lattice
 determinization, scaling and best-path.
 
-TPU-native equivalents of the reference lattice layer (reference:
+JAX-native equivalents of the reference lattice layer (reference:
 src/lat/kaldi-lattice.h — Lattice is an FST with LatticeWeight
 (graph_cost, acoustic_cost), CompactLattice is an acceptor over words
 with CompactLatticeWeight (LatticeWeight + transition-id string);

@@ -1,6 +1,6 @@
 """Acoustic-score bridges: NN posteriors → decoder log-likelihoods.
 
-TPU-native equivalents of the reference bridge layer (reference:
+JAX-native equivalents of the reference bridge layer (reference:
 src/aslp-nnet/nnet-decodable.{h,cc} NnetDecodableBase — batched chunk-wise
 Feedforward, log, prior subtraction, acoustic scale, skip-frame
 copy/split modes at :70-79; src/aslp-nnet/nnet-pdf-prior.{h,cc} PdfPrior;

@@ -1,6 +1,6 @@
 """Lattice generation, rescoring and sweep scoring.
 
-TPU-native equivalent of the reference lattice chain (reference:
+JAX-native equivalent of the reference lattice chain (reference:
 src/decoder/lattice-faster-decoder.h:96 LatticeFasterDecoder with
 ForwardLink records + PruneActiveTokens/GetRawLattice;
 src/lat/kaldi-lattice.h CompactLattice with separate graph/acoustic

@@ -1,6 +1,6 @@
 """Minimum-Bayes-risk (confusion network / sausage) decoding.
 
-TPU-native equivalent of the reference MBR layer (reference:
+JAX-native equivalent of the reference MBR layer (reference:
 src/lat/sausages.{h,cc} MinimumBayesRisk — word-level posteriors from
 lattice forward-backward, confusion-network slots, per-word confidence).
 

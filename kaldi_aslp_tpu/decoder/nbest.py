@@ -1,6 +1,6 @@
 """N-best extraction from lattices + LM rescoring.
 
-TPU-native equivalents of the reference rescoring chain (reference:
+JAX-native equivalents of the reference rescoring chain (reference:
 src/latbin/lattice-to-nbest.cc — k-shortest paths; lattice-lmrescore.cc
 — subtract the old G scores, add a new LM's).
 

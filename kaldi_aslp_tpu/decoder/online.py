@@ -1,6 +1,6 @@
 """Incremental (online) Viterbi decoding.
 
-TPU-native equivalent of the reference online decoder (reference:
+JAX-native equivalent of the reference online decoder (reference:
 src/aslp-online/online-nnet-decoder.h:66 MultiUtteranceNnetDecoder with
 AdvanceDecoding/FinalizeDecoding/GetBestPath/ResetDecoder over
 LatticeFasterOnlineDecoder).

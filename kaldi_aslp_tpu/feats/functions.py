@@ -1,6 +1,6 @@
 """Post-processing feature transforms: deltas, splice, CMVN.
 
-TPU-native re-design of the reference post-feature chain (reference:
+JAX-native re-design of the reference post-feature chain (reference:
 src/feat/feature-functions.{h,cc} DeltaFeatures/SpliceFrames/
 SlidingWindowCmn, src/transform/cmvn.{h,cc}).  All transforms are
 whole-utterance batched array ops: deltas and splice are expressed as

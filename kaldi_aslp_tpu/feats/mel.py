@@ -1,7 +1,7 @@
 """Mel filterbank matrix (reference: src/feat/mel-computations.{h,cc}).
 
 Built once on host as a dense [num_fft_bins, num_mel_bins] matrix so the
-mel projection is a single MXU matmul per batch of frames (the reference
+mel projection is a single matmul per batch of frames (the reference
 loops over bins per frame on CPU/GPU)."""
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Feature-space transforms: LDA, MLLT (STC), fMLLR.
 
-TPU-native equivalents of the reference transform layer (reference:
+JAX-native equivalents of the reference transform layer (reference:
 src/transform/lda-estimate.{h,cc}, mllt.{h,cc} MlltAccs, fmllr-diag-gmm.
 {h,cc} FmllrDiagGmmAccs — used by steps/train_lda_mllt.sh and
 steps/train_sat.sh / align_fmllr.sh).

@@ -1,12 +1,12 @@
 """Frame extraction: dither, DC removal, preemphasis, windowing.
 
-TPU-native re-design of the reference frame pipeline (reference:
+JAX-native re-design of the reference frame pipeline (reference:
 src/feat/feature-functions.h:73-132, feature-window semantics of
 FrameExtractionOptions in src/feat/feature-mfcc.h / feature-fbank.h).
 Instead of a per-frame loop, all frames of a (batch of) waveform(s) are
 materialized as one [num_frames, frame_length] matrix and every step is a
 batched elementwise/matmul op so XLA fuses the chain and the mel projection
-runs on the MXU.
+is one matmul.
 
 Option defaults mirror the reference exactly (frame_shift 10ms, length 25ms,
 dither 1.0, preemph 0.97, remove_dc_offset, povey window, snip_edges,

@@ -1,6 +1,6 @@
 """Context expansion: phone graphs → context-window graphs (the "C" step).
 
-TPU-native equivalent of the reference context FST (reference:
+JAX-native equivalent of the reference context FST (reference:
 src/fstext/context-fst.{h,cc} ContextFst used by fstcomposecontext in
 utils/mkgraph.sh).  Instead of composing with an on-demand C transducer,
 the LG graph is directly rewritten by subset construction: each state

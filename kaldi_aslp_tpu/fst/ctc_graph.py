@@ -1,6 +1,6 @@
 """CTC decoding graphs: blank-loop token transducer over L∘G.
 
-TPU-native equivalent of the reference's Eesen-style CTC graph chain
+JAX-native equivalent of the reference's Eesen-style CTC graph chain
 (reference: src/aslp-bin/aslp-make-ctc-transducer.cc:36-120
 MakeCtcLoopFst — an H transducer where each phone token requires one or
 more consecutive frames of that token with optional surrounding blanks

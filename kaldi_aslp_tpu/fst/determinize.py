@@ -1,6 +1,6 @@
 """Weighted determinization and minimization.
 
-TPU-native equivalents of the reference graph-optimization passes
+JAX-native equivalents of the reference graph-optimization passes
 (reference: src/fstext/determinize-star.h DeterminizeStar — subset
 determinization of functional transducers with residual weights and
 output-string residuals, epsilon-input chains for multi-symbol outputs;

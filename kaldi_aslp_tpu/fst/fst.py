@@ -1,6 +1,6 @@
 """Weighted FSTs (tropical semiring) for graph construction.
 
-TPU-native re-design of the reference's OpenFst-based graph layer
+JAX-native re-design of the reference's OpenFst-based graph layer
 (reference: src/fstext/ — fsttablecompose, fstdeterminizestar,
 fstminimizeencoded used by utils/mkgraph.sh; src/aslp-kws/fst.{h,cc}'s
 minimal self-contained Fst is the precedent for owning the type).

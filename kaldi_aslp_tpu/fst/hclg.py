@@ -1,6 +1,6 @@
 """Decoding/alignment graph compilation: H expansion of L∘G.
 
-TPU-native equivalent of the reference graph chain (reference:
+JAX-native equivalent of the reference graph chain (reference:
 utils/mkgraph.sh — L∘G composition then make-h-transducer +
 add-self-loops; src/decoder/training-graph-compiler.{h,cc} for per-utt
 graphs; src/aslp-bin/aslp-make-ctc-transducer.cc:36-120 for the CTC "H"

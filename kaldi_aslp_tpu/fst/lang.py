@@ -1,6 +1,6 @@
 """Lexicon (L) and grammar (G) construction.
 
-TPU-native equivalents of the reference lang-prep chain (reference:
+JAX-native equivalents of the reference lang-prep chain (reference:
 egs/wsj/s5/utils/prepare_lang.sh + make_lexicon_fst.pl for L,
 src/lmbin/arpa2fst for G).  Host-side; outputs our Fst type."""
 

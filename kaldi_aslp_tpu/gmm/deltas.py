@@ -1,6 +1,6 @@
 """Context-dependent (triphone) GMM training.
 
-TPU-native equivalent of the reference second-pass training (reference:
+JAX-native equivalent of the reference second-pass training (reference:
 egs/wsj/s5/steps/train_deltas.sh — acc-tree-stats → cluster-phones →
 build-tree → gmm-init-model → convert-ali → align/acc/est loop).
 

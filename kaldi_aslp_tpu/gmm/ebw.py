@@ -1,6 +1,6 @@
 """Discriminative GMM re-estimation: Extended Baum-Welch (EBW/MMI).
 
-TPU-native equivalent of the reference's EBW support (reference:
+JAX-native equivalent of the reference's EBW support (reference:
 src/gmm/ebw-diag-gmm.{h,cc} — numerator stats from forced alignment,
 denominator stats from recognition posteriors, per-gaussian D-smoothed
 update mu = (num − den + D·mu₀)/(γnum − γden + D) with D chosen per

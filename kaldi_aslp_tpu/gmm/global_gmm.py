@@ -7,7 +7,7 @@ aslp_scripts/vad/train_diag_gmm.sh:44-75 — the class-conditional GMMs
 behind the GMM VAD (run_gmm_vad.sh).
 
 The reference stores per-frame Gaussian-selection indices on disk
-(gmm-gselect) to cut the CPU E-step cost; here the E-step is two MXU
+(gmm-gselect) to cut the CPU E-step cost; here the E-step is two matmul
 contractions over all Gaussians at once, so gselect pruning would slow
 it down — the whole [T, M] responsibility matrix is computed batched
 on device.

@@ -1,6 +1,6 @@
 """Speaker-adapted training (SAT) with fMLLR.
 
-TPU-native equivalent of the reference SAT chain (reference:
+JAX-native equivalent of the reference SAT chain (reference:
 egs/wsj/s5/steps/train_sat.sh + align_fmllr.sh — per-speaker fMLLR
 transforms estimated from alignments, model re-estimated on transformed
 features, iterating).

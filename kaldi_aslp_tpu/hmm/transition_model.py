@@ -1,6 +1,6 @@
 """Transition model: (phone, hmm-state, pdf) ↔ transition-ids.
 
-TPU-native equivalent of the reference TransitionModel (reference:
+JAX-native equivalent of the reference TransitionModel (reference:
 src/hmm/transition-model.{h,cc}).  The numbering scheme mirrors Kaldi:
 transition-states are tuples (phone, hmm-state, pdf) numbered from 1 in
 order of phone then state; each transition-state owns a contiguous block

@@ -1,7 +1,7 @@
 """Kaldi lattice serialization: text and binary (OpenFst VectorFst
 layout), plus table holders.
 
-TPU-native equivalent of the reference lattice I/O (reference:
+JAX-native equivalent of the reference lattice I/O (reference:
 src/lat/kaldi-lattice.{h,cc} — WriteLattice/WriteCompactLattice write
 either the OpenFst binary VectorFst form or the FstPrinter text form;
 LatticeHolder/CompactLatticeHolder detect binary by the leading FST

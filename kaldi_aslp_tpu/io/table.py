@@ -1,11 +1,13 @@
 """Kaldi Table I/O: ark/scp readers and writers.
 
-TPU-native replacement for the reference Table layer (reference:
+JAX-framework replacement for the reference Table layer (reference:
 src/util/kaldi-table.h, kaldi-holder.h): SequentialTableReader /
 RandomAccessTableReader / TableWriter over rspecifier / wspecifier strings
 (``ark:-``, ``scp:feats.scp``, ``ark,t:f``, ``ark:gunzip -c f.gz|``,
 ``ark,scp:f.ark,f.scp``).  Pipes are honoured so reference recipe command
-strings (e.g. feats_tr="ark:copy-feats ... |") keep working.
+strings (e.g. feats_tr="ark:copy-feats ... |") keep working.  A pipe's
+command runs with JAX pinned to the CPU: when both ends are this
+package's tools, only the process that opened the pipe may hold the card.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from kaldi_aslp_tpu.io.kaldi_io import (
     BINARY_MARKER,
     KaldiIOError,
 )
+from kaldi_aslp_tpu.utils.jax_setup import cpu_only_env
 
 
 # ---------------------------------------------------------------------------
@@ -64,7 +67,8 @@ def _open_rxfilename(path: str) -> BinaryIO:
         return os.fdopen(os.dup(0), "rb")
     if path.endswith("|"):
         proc = subprocess.Popen(
-            path[:-1], shell=True, stdout=subprocess.PIPE
+            path[:-1], shell=True, stdout=subprocess.PIPE,
+            env=cpu_only_env(),
         )
         return proc.stdout  # type: ignore[return-value]
     if ":" in path:
@@ -81,7 +85,8 @@ def _open_wxfilename(path: str) -> BinaryIO:
     if path == "" or path == "-":
         return os.fdopen(os.dup(1), "wb")
     if path.startswith("|"):
-        proc = subprocess.Popen(path[1:], shell=True, stdin=subprocess.PIPE)
+        proc = subprocess.Popen(path[1:], shell=True, stdin=subprocess.PIPE,
+                                env=cpu_only_env())
         return proc.stdin  # type: ignore[return-value]
     return open(path, "wb")
 

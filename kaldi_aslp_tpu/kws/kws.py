@@ -1,6 +1,6 @@
 """Keyword spotting: keyword-filler token passing over posteriors.
 
-TPU-native equivalent of the reference KWS stack (reference:
+JAX-native equivalent of the reference KWS stack (reference:
 src/aslp-kws/keyword-spot.h:19-160 KeywordSpot — token passing over a
 keyword-filler graph fed per-frame posteriors, confidence = best
 keyword-path score; src/aslp-kws/fst.{h,cc} minimal FST;

@@ -1,7 +1,7 @@
 """Keyword state-map generation, phone-alignment conversion and ROC
 evaluation for KWS training.
 
-TPU-native equivalents of the reference tools (reference:
+JAX-native equivalents of the reference tools (reference:
 src/aslp-kwsbin/aslp-kws-gen-state-map.cc — maps the acoustic model's
 pdfs onto a compact keyword-state inventory {0=<gbg> filler, 1=sil,
 2..=CD keyword states}, emitting a transition-id → kws-state lookup and

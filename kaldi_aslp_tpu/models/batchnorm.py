@@ -1,13 +1,13 @@
 """Batch normalization with cross-replica statistics.
 
-TPU-native equivalent of the reference's BatchNormalization component
+JAX-native equivalent of the reference's BatchNormalization component
 (reference: src/aslp-nnet/nnet-batch-normalization.h:32), whose
 distinguishing feature is *global* accumulated statistics synchronized
 across workers at the end of training (reference: MpiNode::ReduceAccStat
 mpi-node.h:77-92, worker main :254-257).
 
 Here the train-time batch statistics are optionally psum'd over a named
-mesh axis (``axis_name``) — the idiomatic TPU replacement for the MPI
+mesh axis (``axis_name``) — the idiomatic mesh replacement for the MPI
 allreduce — and the running accumulators (sum, sumsq, count) live in the
 component *state* pytree so they checkpoint with the model."""
 

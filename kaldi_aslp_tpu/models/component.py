@@ -1,4 +1,4 @@
-"""Component framework: the TPU-native equivalent of the reference's
+"""Component framework: the JAX-native equivalent of the reference's
 nnet1-style component zoo (reference: src/aslp-nnet/nnet-component.h:45).
 
 Design (functional, not a port of PropagateFnc/BackpropagateFnc):

@@ -1,8 +1,8 @@
 """Flagship model builders: the configs the benchmarks run.
 
 The flagship is a librispeech-style BLSTM-CTC acoustic model
-(reference recipe: aslp_scripts/ctc/ + run_lstm.sh proto shapes;
-BASELINE.json north-star config)."""
+(reference recipe: aslp_scripts/ctc/ + run_lstm.sh proto shapes); bench.py
+and chip_smoke.py run it with bf16 matmuls."""
 
 from __future__ import annotations
 
@@ -24,12 +24,15 @@ def build_blstm_ctc(
     proj_dim: int = 320,
     cell_dim: int = 512,
     num_targets: int = 72,  # mono phones*2+1 style CTC inventory
+    bf16: bool = False,
 ) -> Nnet:
-    """BLSTM-CTC flagship (reference: aslp-nnet-train-ctc-streams models)."""
+    """BLSTM-CTC flagship (reference: aslp-nnet-train-ctc-streams models);
+    ``bf16``: bf16 matmuls with f32 accumulation in the BLSTMP layers."""
     net = Nnet()
     dim = input_dim
     for _ in range(num_layers):
-        net.add(BLstmProjectedStreams(dim, 2 * proj_dim, cell_dim=cell_dim))
+        net.add(BLstmProjectedStreams(dim, 2 * proj_dim, cell_dim=cell_dim,
+                                      bf16=bf16))
         dim = 2 * proj_dim
     net.add(AffineTransform(dim, num_targets, param_stddev=0.04,
                             bias_mean=0.0, bias_range=0.0))

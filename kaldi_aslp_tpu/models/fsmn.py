@@ -1,6 +1,6 @@
 """Feedforward sequential memory components: cFSMN and row convolution.
 
-TPU-native equivalents of the reference's FSMN family (reference:
+JAX-native equivalents of the reference's FSMN family (reference:
 src/aslp-nnet/nnet-cfsmn-component.h:33 CompactFsmn — past/future memory
 taps with per-dim learned coefficients, contexts parsed at :54-70;
 src/aslp-nnet/nnet-row-convolution.{h,cc} RowConvolution).

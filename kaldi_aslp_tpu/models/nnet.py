@@ -1,6 +1,6 @@
 """Graph network container: DAG of components with multi-input/multi-output.
 
-TPU-native equivalent of the reference's graph Nnet (reference:
+JAX-native equivalent of the reference's graph Nnet (reference:
 src/aslp-nnet/nnet-nnet.{h,cc} — component ids, per-edge column offsets,
 AssignComponentId/SortComponent topo sort at nnet-nnet.cc:886,951,
 multi-io Propagate summing into per-component input buffers at :70-106).

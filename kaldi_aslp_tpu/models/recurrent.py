@@ -1,15 +1,15 @@
 """Recurrent components: LSTM(P) / BLSTM / LC-BLSTM / CIFG-LSTM / GRU.
 
-TPU-native re-design of the reference's multi-stream recurrent zoo
+JAX re-design of the reference's multi-stream recurrent zoo
 (reference: src/aslp-nnet/nnet-lstm-projected-streams.h:46,
 nnet-blstm-projected-streams.h, nnet-blstm-projected-streams-lc.h:57,
 nnet-recurrent-component.h:28,106, nnet-gru-streams.h,
 nnet-lstm-couple-if-projected-streams.h).
 
-Key TPU decisions:
+Key design decisions:
   - layout is [S, T, D] (streams, time, feat); the input projection
     ``x @ W_gifo_x^T`` is hoisted out of the time loop as ONE [S*T, D]
-    MXU matmul (the reference does the same trick, :347-432), and only
+    matmul (the reference does the same trick, :347-432), and only
     the [S, P] recurrent matmul lives inside ``lax.scan``;
   - per-stream sequence masks gate state updates, so right-padding
     never corrupts carried state — this also makes the *backward*
@@ -33,7 +33,7 @@ from kaldi_aslp_tpu.models.component import Component, register
 
 
 def _mm(a, b, dtype=None):
-    """Matmul with optional bf16 inputs + f32 accumulation (MXU path)."""
+    """Matmul with optional bf16 inputs + f32 accumulation."""
     if dtype is not None:
         a = a.astype(dtype)
         b = b.astype(dtype)
@@ -47,8 +47,7 @@ def _einsum_stg_bf16(x, w):
     Without the custom VJP the transpose einsums mix the f32 cotangent
     with the bf16 weight and XLA upcasts them to f32 matmuls — at
     [S*T, 640]x[640, 4C] sizes that is the single largest f32 block of
-    the training step (measured ~5 ms/step on the flagship config, half
-    MXU rate).  A bf16 component means bf16 matmuls throughout; f32
+    the training step.  A bf16 component means bf16 matmuls throughout; f32
     accumulation keeps the update numerically sane."""
     return jnp.einsum("std,gd->stg", x.astype(jnp.bfloat16),
                       w.astype(jnp.bfloat16),
@@ -75,6 +74,12 @@ _einsum_stg_bf16.defvjp(_einsum_stg_bf16_fwd, _einsum_stg_bf16_bwd)
 def _einsum_stg(x, w, dtype=None):
     if dtype is not None:
         if dtype == jnp.bfloat16:
+            # under shard_map a replicated weight meets batch-varying
+            # activations: mark it varying before the custom VJP, so the
+            # weight cotangent is summed over the batch axes outside it
+            missing = tuple(jax.typeof(x).vma - jax.typeof(w).vma)
+            if missing:
+                w = jax.lax.pcast(w, missing, to="varying")
             return _einsum_stg_bf16(x, w)
         x = x.astype(dtype)
         w = w.astype(dtype)
@@ -153,49 +158,7 @@ class LstmProjectedStreams(Component):
         state = _state_like(state, x)
         if mask is None:
             mask = jnp.ones((S, T), jnp.float32)
-        # Pallas fast paths with VMEM-resident weights.  Auto-enabled on
-        # TPU (grads match the scan to float32 rounding, tested);
-        # opt-in/out via the <Pallas> attr; CPU keeps the scan unless
-        # explicitly forced (interpret mode is for tests).
-        use_pallas = self.attrs.get("pallas", None)
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
-        if use_pallas:
-            if train:
-                from kaldi_aslp_tpu.ops.lstm_pallas import (
-                    lstmp_train_core,
-                )
-                dt = getattr(self, "compute_dtype", None)
-                xg = _einsum_stg(x, params["w_gifo_x"], dt) \
-                    + params["bias"]
-                peep = jnp.stack([
-                    params["peephole_i_c"], params["peephole_f_c"],
-                    params["peephole_o_c"],
-                ])
-                # mxu_bf16 mirrors the scan path's semantics: a bf16
-                # component does its recurrent matmuls in bf16 with
-                # f32 accumulation (2x MXU throughput); set
-                # KALDI_ASLP_LSTM_MXU_FP32=1 to force fp32 dots
-                import os
-                mxu_bf16 = (dt is not None and not
-                            os.environ.get("KALDI_ASLP_LSTM_MXU_FP32"))
-                ys, fc, fr = lstmp_train_core(
-                    xg, mask, params["w_gifo_r"], params["w_r_m"],
-                    peep, state["c"], state["r"],
-                    cell_clip=self.cell_clip,
-                    interpret=jax.default_backend() == "cpu",
-                    store_bf16=dt is not None,
-                    mxu_bf16=mxu_bf16,
-                )
-                return ys, {"c": fc, "r": fr}
-            from kaldi_aslp_tpu.ops.lstm_pallas import (
-                lstmp_forward_pallas_from_params,
-            )
-            return lstmp_forward_pallas_from_params(
-                params, x, mask=mask, state=state,
-                cell_clip=self.cell_clip,
-            )
-        # hoisted input projection: one big MXU matmul
+        # hoisted input projection: one big matmul
         dt = getattr(self, "compute_dtype", None)
         xg = _einsum_stg(x, params["w_gifo_x"], dt) + params["bias"]
         clip = self.cell_clip
@@ -425,68 +388,6 @@ class _Bidirectional(Component):
         # what makes the LC variant "latency-controlled")
         return {"fwd": self.fwd.init_state(num_streams)}
 
-    def _use_fused(self, train):
-        """Fused two-directions-per-grid-step Pallas core: only for
-        LSTMP cells on the TPU bf16 training path (bf16 activation
-        storage is what makes both directions fit VMEM)."""
-        if not train or self.cell_cls is not LstmProjectedStreams:
-            return False
-        use_pallas = self.attrs.get("pallas", None)
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
-        return (use_pallas
-                and getattr(self.fwd, "compute_dtype", None)
-                is not None)
-
-    def _apply_fused(self, params, x, state, mask):
-        import os
-
-        from kaldi_aslp_tpu.ops.lstm_pallas import (
-            bilstmp_train_core,
-            bilstmp_xfused_train_core,
-        )
-
-        pf, pb = params["fwd"], params["bwd"]
-        dt = self.fwd.compute_dtype
-        peep_f = jnp.stack([pf["peephole_i_c"], pf["peephole_f_c"],
-                            pf["peephole_o_c"]])
-        peep_b = jnp.stack([pb["peephole_i_c"], pb["peephole_f_c"],
-                            pb["peephole_o_c"]])
-        mxu_bf16 = not os.environ.get("KALDI_ASLP_LSTM_MXU_FP32")
-        interpret = jax.default_backend() == "cpu"
-        # x-fused core (input projection in-kernel, weight grads
-        # accumulated in VMEM — no [T,S,4C] xg/dxg HBM streams).
-        # Narrow inputs (a stack's first layer sees the 40-120-dim
-        # feature stream) are zero-padded to lane width inside the
-        # wrapper — still ~16x less HBM traffic than the xg fallback.
-        if (mxu_bf16
-                and not os.environ.get("KALDI_ASLP_LSTM_NO_XFUSE")):
-            ysf, ysb, fc, fr = bilstmp_xfused_train_core(
-                x, mask, pf["w_gifo_x"], pb["w_gifo_x"],
-                pf["w_gifo_r"], pf["w_r_m"], peep_f,
-                pb["w_gifo_r"], pb["w_r_m"], peep_b,
-                pf["bias"], pb["bias"],
-                state["fwd"]["c"], state["fwd"]["r"],
-                cell_clip=self.fwd.cell_clip, interpret=interpret,
-            )
-            return (jnp.concatenate([ysf, ysb], axis=-1),
-                    {"fwd": {"c": fc, "r": fr}})
-        # bias is added inside the kernel; bf16 xg keeps the whole
-        # activation stream (cotangents included) at half width
-        xgf = _einsum_stg(x, pf["w_gifo_x"], dt).astype(jnp.bfloat16)
-        xgb = _einsum_stg(x, pb["w_gifo_x"], dt).astype(jnp.bfloat16)
-        ysf, ysb, fc, fr = bilstmp_train_core(
-            xgf, xgb, mask, pf["w_gifo_r"], pf["w_r_m"], peep_f,
-            pb["w_gifo_r"], pb["w_r_m"], peep_b,
-            pf["bias"], pb["bias"],
-            state["fwd"]["c"], state["fwd"]["r"],
-            cell_clip=self.fwd.cell_clip,
-            interpret=interpret,
-            store_bf16=True, mxu_bf16=mxu_bf16,
-        )
-        return (jnp.concatenate([ysf, ysb], axis=-1),
-                {"fwd": {"c": fc, "r": fr}})
-
     def apply(self, params, x, state=None, train=False, rng=None, mask=None):
         S, T, _ = x.shape
         if state is None:
@@ -494,8 +395,6 @@ class _Bidirectional(Component):
         state = _state_like(state, x)
         if mask is None:
             mask = jnp.ones((S, T), jnp.float32)
-        if self._use_fused(train):
-            return self._apply_fused(params, x, state, mask)
         y_f, s_f = self.fwd.apply(params["fwd"], x, state["fwd"],
                                   train=train, rng=rng, mask=mask)
         x_rev = jnp.flip(x, axis=1)

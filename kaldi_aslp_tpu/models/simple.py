@@ -1,6 +1,6 @@
 """Frame-level components: transforms, activations, utility layers.
 
-TPU-native equivalents of the reference component zoo
+JAX-native equivalents of the reference component zoo
 (reference: src/aslp-nnet/nnet-affine-transform.h:34,
 nnet-linear-transform.h:33, nnet-activation.h:35-356,
 nnet-various.h:43-483).  All are pure elementwise/matmul ops on [..., D]
@@ -104,7 +104,7 @@ class ReLU(Component):
 
 @register
 class Softmax(Component):
-    """(reference: nnet-activation.h:35 — on TPU computed in log-sum-exp
+    """(reference: nnet-activation.h:35 — computed in log-sum-exp
     stable form; decode-side log is fused by XLA)."""
 
     token = "<Softmax>"

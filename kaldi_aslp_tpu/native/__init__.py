@@ -1,7 +1,7 @@
 """Native (C++) runtime components, loaded via ctypes.
 
 The reference's runtime around the compute path is C++ (Table I/O,
-data loading — reference: src/util/); these are the TPU-framework
+data loading — reference: src/util/); these are the JAX-framework
 equivalents.  Built on first use with the system compiler into
 ``~/.cache/kaldi_aslp_tpu``; every entry point has a pure-Python
 fallback so the package works without a toolchain."""

@@ -1,6 +1,6 @@
 // Native ark scanner: the data-loader hot path in C++.
 //
-// TPU-native equivalent of the reference's C++ Table I/O layer
+// JAX-native equivalent of the reference's C++ Table I/O layer
 // (reference: src/util/kaldi-table-inl.h SequentialTableReader +
 // src/matrix/kaldi-matrix.cc Matrix::Read): one pass over an ark buffer
 // records every entry's key and payload geometry so Python wraps the

@@ -2,7 +2,7 @@
 //
 // The reference assembles multi-stream minibatches in C++ (stream
 // filling + padding, src/aslp-nnet/data-reader.cc:200-344); this is the
-// TPU-framework equivalent for the host side of the pipeline: a single
+// JAX-framework equivalent for the host side of the pipeline: a single
 // pass that pads variable-length [T_i, D] float32 feature matrices into
 // one [S, T_max, D] buffer, optionally fused with the wire-format cast
 // (bf16 round-to-nearest-even, or per-dim affine int8 quantization —

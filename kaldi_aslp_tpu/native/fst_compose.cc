@@ -3,7 +3,7 @@
 // The reference builds decoding graphs with C++ OpenFst binaries
 // (fsttablecompose / fstcomposecontext, src/fstext/table-matcher.h;
 // driven by utils/mkgraph.sh and aslp_scripts/ctc/make_ctc_graph.sh).
-// This is the TPU framework's native equivalent of the hot op: the
+// This is this framework's native equivalent of the hot op: the
 // python Fst.compose dominates TLG construction (measured 35 s of a
 // 47 s 175k-state build; ~7 min at 750k states).
 //

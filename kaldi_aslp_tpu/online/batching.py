@@ -1,11 +1,11 @@
 """Cross-session acoustic batching for the online server.
 
-TPU-native generalization of the reference's per-session
+JAX-native generalization of the reference's per-session
 ``max_nnet_batch_size`` batching (reference:
 src/aslp-online/online-nnet-decoder.h:30-45 DecodeOptions — the
 reference batches frames WITHIN one session's forward; here concurrent
 sessions' feature chunks are coalesced into ONE padded device forward,
-which is what actually fills the MXU when many small streams are
+which is what actually fills the device when many small streams are
 active).
 
 Usage: wrap the batched model forward (``fn([B, T, D], mask [B, T]) →

@@ -1,6 +1,6 @@
 """Streaming feature pipeline: incremental fbank/MFCC + online CMVN.
 
-TPU-native equivalent of the reference online feature stack (reference:
+JAX-native equivalent of the reference online feature stack (reference:
 src/aslp-online/online-feature-pipeline.h:159 OnlineFeaturePipeline,
 OnlineVadFeaturePipeline; src/itf/online-feature-itf.h:49).
 

@@ -1,6 +1,6 @@
 """CRF punctuation restoration for final recognition results.
 
-TPU-native equivalent of the reference's CRF++-based processor
+JAX-native equivalent of the reference's CRF++-based processor
 (reference: src/aslp-online/punctuation-processor.{h,cc} — each token
 is tagged N/D/J/G/W = none/comma/period/exclamation/question and the
 corresponding mark is appended; the reference tags UTF-8 characters,

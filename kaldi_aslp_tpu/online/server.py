@@ -1,6 +1,6 @@
 """Online decoding TCP server.
 
-TPU-native equivalent of the reference serving stack (reference:
+JAX-native equivalent of the reference serving stack (reference:
 src/aslp-online/tcp-server.h:19 TcpServer, wav-provider.h:26-60
 WavProvider socket protocol with partial/final/endpoint messages,
 decode-thread.cc:162 NnetVadDecodeThread session loop,

@@ -1,6 +1,6 @@
 """Linear-chain CRF: forward-backward training + Viterbi tagging.
 
-TPU-native replacement for the reference's CRF++ dependency
+JAX-native replacement for the reference's CRF++ dependency
 (reference: src/aslp-online/punctuation-processor.{h,cc} wraps
 CRFPP::Tagger, gated by HAVE_CRF in src/aslp.mk:9-12).  Instead of
 binding the C++ CRF++ library, the model is ~80 lines of JAX: hashed

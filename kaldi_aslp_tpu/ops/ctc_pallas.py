@@ -1,172 +1,187 @@
-"""Pallas CTC alpha/beta kernels: the forward-backward recursions as
-sequential-grid kernels with the [S, U'] state held in VMEM.
+"""CTC alpha/beta recursions as GPU kernels (Pallas, Triton route).
 
 Replaces (reference) the per-timestep CUDA kernel launches of
 cuda_compute_ctc_alpha/beta (src/aslp-cudamatrix/cu-kernels.h:502-517,
-dispatched from ctc-loss.cc:115 EvalParallel).  The same shift/logsumexp
-step as ops/ctc.py's lax.scan, but the carry never leaves VMEM and the
-per-step emission block streams in via the grid pipeline.
+dispatched from ctc-loss.cc:115 EvalParallel).  The layout is warp-ctc's:
+each program owns a few streams and runs the whole time loop inside the
+kernel, so the 2·T serial steps of a batch cost one launch instead of
+one loop iteration (and its kernels) per step; a second grid axis runs
+the alpha and beta recursions of a group side by side.
 
-Because the CTC gradient is a pure function of (alpha, beta, logp)
-(the occupancy formula in ops/ctc.py), these kernels slot into the
-custom-VJP forward with no Pallas backward needed."""
+Per program: the [G, U'] row of the recursion lives in registers; each
+step's row is written to the [T, S, U'] output the custom VJP in
+ops/ctc.py consumes, and the shift by 1 and by 2 along U' is a masked
+reload of the row just stored (a block barrier separates the store from
+the reload).  The step arithmetic is ops/ctc.py's scan step, term for
+term, so both give the same alphas and betas.
+"""
 
 from __future__ import annotations
 
 from functools import partial
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-NEG_INF = -1e30
+from kaldi_aslp_tpu.ops.ctc import NEG_INF, _lse3, _shift_left
 
-
-def _shift_r(x, k):
-    pad = jnp.full(x.shape[:-1] + (k,), NEG_INF, x.dtype)
-    return jnp.concatenate([pad, x[..., :-k]], axis=-1)
-
-
-def _shift_l(x, k):
-    pad = jnp.full(x.shape[:-1] + (k,), NEG_INF, x.dtype)
-    return jnp.concatenate([x[..., k:], pad], axis=-1)
+# streams per program: one, so the flagship batch (128 streams, two
+# directions) runs as 256 programs, about two per SM
+STREAMS_PER_PROGRAM = 1
 
 
-def _lse3(a, b, c):
-    m = jnp.maximum(jnp.maximum(a, b), c)
-    m = jnp.maximum(m, NEG_INF)
-    return m + jnp.log(jnp.exp(a - m) + jnp.exp(b - m)
-                       + jnp.exp(c - m))
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
 
 
-def _alpha_kernel(lp_ref, active_ref, skip_ref, init_ref, out_ref,
-                  alpha_scr):
-    t = pl.program_id(0)
+def _num_warps(rows: int, width: int) -> int:
+    """One warp per 256 row elements, 1 to 8: the row is a handful of
+    registers per thread, and fewer warps make the per-step barrier
+    cheaper."""
+    return max(1, min(8, rows * width // 256))
 
-    @pl.when(t == 0)
-    def _():
-        alpha_scr[:] = init_ref[:]
 
-    @pl.when(t > 0)
-    def _():
-        prev = alpha_scr[:]
+def _shifted(out_ref, t, rows, u, k, width, extra_mask=None):
+    """out[t, rows, u + k] where 0 <= u + k < width, else NEG_INF."""
+    src = u + k
+    mask = (src >= 0) & (src < width)
+    if extra_mask is not None:
+        mask = mask & extra_mask
+    src = jnp.clip(src, 0, out_ref.shape[-1] - 1)
+    mask = jnp.broadcast_to(mask, (rows.shape[0], u.shape[1]))
+    return plgpu.load(out_ref.at[t, rows, src], mask=mask, other=NEG_INF)
+
+
+def _barrier(interpret):
+    """Block barrier between a row's store and its reload (the interpreter
+    runs the block's lanes in order and has no barrier to lower)."""
+    if not interpret:
+        plgpu.debug_barrier()
+
+
+def _alpha(in_len_ref, lp_ref, skip_ref, out_ref, width, interpret):
+    T = lp_ref.shape[0]
+    G, Up = skip_ref.shape
+    rows = jnp.arange(G)[:, None]
+    u = jnp.arange(Up)[None, :]
+    in_len = in_len_ref[...][:, None]
+    skip = skip_ref[...] > 0
+
+    alpha0 = jnp.where(u < 2, lp_ref[0], NEG_INF)
+    out_ref[0] = alpha0
+    _barrier(interpret)
+
+    def step(t, prev):
         cand = _lse3(
-            prev, _shift_r(prev, 1),
-            jnp.where(skip_ref[:] > 0, _shift_r(prev, 2), NEG_INF),
-        ) + lp_ref[0]
-        active = active_ref[0][:, 0:1]
-        alpha_scr[:] = jnp.where(active > 0, cand, prev)
+            prev,
+            _shifted(out_ref, t - 1, rows, u, -1, width),
+            _shifted(out_ref, t - 1, rows, u, -2, width, skip),
+        ) + lp_ref[t]
+        alpha = jnp.where(t < in_len, cand, prev)
+        out_ref[t] = alpha
+        _barrier(interpret)
+        return alpha
 
-    out_ref[0] = alpha_scr[:]
+    jax.lax.fori_loop(1, T, step, alpha0)
 
 
-def _beta_kernel(lp_ref, before_ref, last_ref, skip2_ref, end_ref,
-                 out_ref, beta_scr):
-    t = pl.program_id(0)  # reversed time via index maps
+def _beta(in_len_ref, exp_len_ref, lp_ref, skip2_ref, out_ref, width,
+          interpret):
+    T = lp_ref.shape[0]
+    G, Up = skip2_ref.shape
+    rows = jnp.arange(G)[:, None]
+    u = jnp.arange(Up)[None, :]
+    in_len = in_len_ref[...][:, None]
+    exp_len = exp_len_ref[...][:, None]
+    skip2 = skip2_ref[...] > 0
+    at_end = (u == exp_len - 1) | (u == exp_len - 2)
 
-    @pl.when(t == 0)
+    def beta_at(t, nxt, nxt1, nxt2):
+        lp_cur = lp_ref[t]
+        cand = _lse3(nxt, nxt1, nxt2) + lp_cur
+        init = jnp.where(at_end, lp_cur, NEG_INF)
+        beta = jnp.where(t == in_len - 1, init,
+                         jnp.where(t < in_len - 1, cand, nxt))
+        out_ref[t] = beta
+        _barrier(interpret)
+        return beta
+
+    none = jnp.full((G, Up), NEG_INF, jnp.float32)
+    beta_last = beta_at(T - 1, none, none, none)
+
+    def step(i, nxt):
+        t = T - 2 - i
+        return beta_at(
+            t, nxt,
+            _shifted(out_ref, t + 1, rows, u, 1, width),
+            _shifted(out_ref, t + 1, rows, u, 2, width, skip2),
+        )
+
+    jax.lax.fori_loop(0, T - 1, step, beta_last)
+
+
+def _kernel(in_len_ref, exp_len_ref, lp_ref, skip_ref, skip2_ref,
+            alpha_ref, beta_ref, *, width, interpret):
+    """Grid (stream groups, 2): the second grid axis picks the direction,
+    so a group's alpha and beta recursions run at the same time on
+    different SMs."""
+    @pl.when(pl.program_id(1) == 0)
     def _():
-        beta_scr[:] = jnp.full_like(beta_scr, NEG_INF)
+        _alpha(in_len_ref, lp_ref, skip_ref, alpha_ref, width, interpret)
 
-    prev = beta_scr[:]
-    cand = _lse3(
-        prev, _shift_l(prev, 1),
-        jnp.where(skip2_ref[:] > 0, _shift_l(prev, 2), NEG_INF),
-    ) + lp_ref[0]
-    init = jnp.where(end_ref[:] > 0, lp_ref[0], NEG_INF)
-    is_last = last_ref[0][:, 0:1]
-    before = before_ref[0][:, 0:1]
-    beta_scr[:] = jnp.where(
-        is_last > 0, init, jnp.where(before > 0, cand, prev)
-    )
-    out_ref[0] = beta_scr[:]
+    @pl.when(pl.program_id(1) == 1)
+    def _():
+        _beta(in_len_ref, exp_len_ref, lp_ref, skip2_ref, beta_ref, width,
+              interpret)
 
 
-def _round_up(n, m):
-    return ((n + m - 1) // m) * m
-
-
-@partial(jax.jit, static_argnames=("interpret",))
+@partial(jax.jit, static_argnames=("streams_per_program", "interpret"))
 def ctc_alpha_beta_pallas(
-    lp_t: jnp.ndarray,          # [T, S, U'] emission scores (-inf masked)
-    skip_ok: jnp.ndarray,       # [S, U'] skip-transition mask
+    lp_t: jnp.ndarray,           # [T, S, U'] emission scores (NEG_INF masked)
+    skip_ok: jnp.ndarray,        # [S, U'] skip-transition mask
     input_lengths: jnp.ndarray,  # [S]
-    exp_lens: jnp.ndarray,      # [S] expanded label lengths (2U+1)
+    exp_lens: jnp.ndarray,       # [S] expanded label lengths (2U+1)
+    streams_per_program: int = STREAMS_PER_PROGRAM,
     interpret: bool = False,
 ):
-    """Returns (alphas [T, S, U'], betas [T, S, U'])."""
-    T, S, Up = lp_t.shape
-    Up_pad = _round_up(Up, 128)
-    S_pad = _round_up(S, 8)
-    pad_u = Up_pad - Up
-    pad_s = S_pad - S
-    if pad_u or pad_s:
+    """Returns (alphas [T, S, U'], betas [T, S, U']), equal to
+    ops/ctc.py ``alpha_beta_scan`` on the same arguments.  S is padded to
+    a multiple of ``streams_per_program`` (a power of two) and U' to a
+    power of two."""
+    T, S, width = lp_t.shape
+    G = streams_per_program
+    Up = _next_pow2(width)
+    S_pad = -(-S // G) * G
+    pad_s, pad_u = S_pad - S, Up - width
+    input_lengths = input_lengths.astype(jnp.int32)
+    exp_lens = exp_lens.astype(jnp.int32)
+    skip2 = _shift_left(skip_ok, 2)
+    if pad_s or pad_u:
         lp_t = jnp.pad(lp_t, ((0, 0), (0, pad_s), (0, pad_u)),
                        constant_values=NEG_INF)
         skip_ok = jnp.pad(skip_ok, ((0, pad_s), (0, pad_u)))
+        skip2 = jnp.pad(skip2, ((0, pad_s), (0, pad_u)))
         input_lengths = jnp.pad(input_lengths, (0, pad_s))
         exp_lens = jnp.pad(exp_lens, (0, pad_s), constant_values=1)
 
-    u_idx = jnp.arange(Up_pad)[None, :]
-    t_idx = jnp.arange(T)[:, None]
-    active = (t_idx < input_lengths[None, :]).astype(jnp.float32)
-    is_last = (t_idx == input_lengths[None, :] - 1).astype(jnp.float32)
-    before_last = (t_idx < input_lengths[None, :] - 1).astype(jnp.float32)
-    active_l = jnp.broadcast_to(active[:, :, None], (T, S_pad, 128))
-    last_l = jnp.broadcast_to(is_last[:, :, None], (T, S_pad, 128))
-    before_l = jnp.broadcast_to(before_last[:, :, None],
-                                (T, S_pad, 128))
-    end_mask = ((u_idx == exp_lens[:, None] - 1)
-                | (u_idx == exp_lens[:, None] - 2)).astype(jnp.float32)
-    # beta's skip uses skip_ok shifted left by 2 (destination-side test)
-    skip2 = jnp.pad(skip_ok[:, 2:], ((0, 0), (0, 2)))
-
-    # alpha init = lp[0] restricted to u ∈ {0, 1}
-    init = jnp.where(u_idx < 2, lp_t[0], NEG_INF)
-    init = jnp.where(
-        (u_idx == 1) & (exp_lens[:, None] < 2), NEG_INF, init
-    )
-
-    common = dict(
-        out_shape=jax.ShapeDtypeStruct((T, S_pad, Up_pad), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((S_pad, Up_pad), jnp.float32)],
+    rows = pl.BlockSpec((G,), lambda i, d: (i,))
+    row_block = pl.BlockSpec((G, Up), lambda i, d: (i, 0))
+    time_block = pl.BlockSpec((T, G, Up), lambda i, d: (0, i, 0))
+    # under shard_map the rows vary over the same mesh axes as lp_t
+    out = jax.ShapeDtypeStruct((T, S_pad, Up), jnp.float32,
+                               vma=jax.typeof(lp_t).vma)
+    alphas, betas = pl.pallas_call(
+        partial(_kernel, width=width, interpret=interpret),
+        grid=(S_pad // G, 2),
+        in_specs=[rows, rows, time_block, row_block, row_block],
+        out_specs=[time_block, time_block],
+        out_shape=[out, out],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_num_warps(G, Up), num_stages=1),
         interpret=interpret,
-    )
-    blk = lambda im: pl.BlockSpec((1, S_pad, Up_pad), im,
-                                  memory_space=pltpu.VMEM)
-    blk_l = lambda im: pl.BlockSpec((1, S_pad, 128), im,
-                                    memory_space=pltpu.VMEM)
-    full = lambda shape: pl.BlockSpec(shape, lambda t: (0,) * len(shape),
-                                      memory_space=pltpu.VMEM)
-
-    alphas = pl.pallas_call(
-        _alpha_kernel,
-        grid=(T,),
-        in_specs=[
-            blk(lambda t: (t, 0, 0)),
-            blk_l(lambda t: (t, 0, 0)),
-            full((S_pad, Up_pad)),
-            full((S_pad, Up_pad)),
-        ],
-        out_specs=blk(lambda t: (t, 0, 0)),
-        **common,
-    )(lp_t, active_l, skip_ok, init)
-
-    rev = lambda t: (T - 1 - t, 0, 0)
-    betas = pl.pallas_call(
-        _beta_kernel,
-        grid=(T,),
-        in_specs=[
-            blk(rev),
-            blk_l(rev),
-            blk_l(rev),
-            full((S_pad, Up_pad)),
-            full((S_pad, Up_pad)),
-        ],
-        out_specs=blk(rev),
-        **common,
-    )(lp_t, before_l, last_l, skip2, end_mask)
-
-    return alphas[:, :S, :Up], betas[:, :S, :Up]
+        name="ctc_alpha_beta",
+    )(input_lengths, exp_lens, lp_t, skip_ok, skip2)
+    return alphas[:, :S, :width], betas[:, :S, :width]

@@ -1,13 +1,13 @@
 """BMUF: block-momentum update filtering as an outer optimizer.
 
-TPU-native equivalent of the reference's scalable sync strategy
+JAX-native equivalent of the reference's scalable sync strategy
 (reference: src/aslp-parallel/bmuf-worker.cc:37-68 — every sync_period
 frames each worker computes delta = w_local − w_prev, allreduces it,
 applies a momentum filter d(t) = m·d(t−1) + (1−m)·lr_bmuf·G(t), sets
 w ← w_prev + d (+ Nesterov pre-shift), and snapshots w_prev).
 
-On TPU this is the *outer* loop over DCN-separated host groups or
-gradient-accumulation blocks: the inner loop is plain BSP/psum over ICI;
+Here this is the *outer* loop over host groups or gradient-accumulation
+blocks: the inner loop is plain BSP/psum over the cards of a block;
 BMUF reconciles blocks trained independently.  Pure pytree math — the
 allreduce is either `jax.lax.pmean` (inside shard_map over a 'block'
 axis) or host-level process allreduce; both callers just hand this class

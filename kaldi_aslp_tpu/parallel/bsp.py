@@ -1,8 +1,8 @@
 """BSP data parallelism: shard_map + psum gradient averaging.
 
-TPU-native equivalent of the reference's synchronous strategies
+JAX-native equivalent of the reference's synchronous strategies
 (reference: src/aslp-parallel/bsp-worker.cc:33 — periodic model averaging
-over MPI Allreduce).  On TPU the idiomatic form is *gradient* averaging
+over MPI Allreduce).  Here the idiomatic form is *gradient* averaging
 every step: the model stays replicated, the batch is sharded over the
 'data' mesh axis, and the global-batch gradient falls out of
 differentiating the pmean'd loss (XLA auto-inserts the backward psum for

@@ -1,6 +1,6 @@
 """Device mesh helpers.
 
-TPU-native replacement for the reference's MPI world / machine.conf
+JAX-native replacement for the reference's MPI world / machine.conf
 cluster model (reference: src/aslp-parallel/mpi-node.h:18 MpiNode,
 aslp_scripts/machine.conf): a named `jax.sharding.Mesh` over all chips,
 with 'data' as the batch axis.  Multi-host initialization goes through

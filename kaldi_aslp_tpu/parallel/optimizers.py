@@ -11,8 +11,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-import optax
-
 from kaldi_aslp_tpu.utils.config import Config
 
 
@@ -27,8 +25,12 @@ class OptimizerOptions(Config):
     beta2: float = 0.999
 
 
-def make_optimizer(opts: OptimizerOptions) -> optax.GradientTransformation:
-    """Factory (reference: optimizer.h Optimizer::GetInstance)."""
+def make_optimizer(opts: OptimizerOptions
+                   ) -> "optax.GradientTransformation":
+    """Factory (reference: optimizer.h Optimizer::GetInstance).  optax is
+    imported here, so the BSP/BMUF training path needs only JAX."""
+    import optax
+
     name = opts.optimizer.lower()
     lr = opts.learn_rate
     if name == "sgd":

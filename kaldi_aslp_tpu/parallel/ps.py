@@ -1,7 +1,7 @@
 """EASGD / ASGD / MASGD: asynchronous parameter-server strategies as
-deterministic-schedule TPU capabilities.
+deterministic-schedule mesh programs.
 
-TPU-native re-design of the reference's parameter-server trio
+JAX-native re-design of the reference's parameter-server trio
 (reference: src/aslp-parallel/easgd-server.cc:63-89 + easgd-worker.cc:
 37-69 — elastic pairwise averaging; asgd-server.cc:82-109 +
 asgd-worker.cc:34-69 — accumulated-delta push / model pull;
@@ -12,7 +12,7 @@ The reference's asynchrony is nothing but an MPI *arrival order*:
 workers hit their --sync-period frame count, send kMsgSynchronize, and
 the server serves them strictly one at a time (easgd-server.cc:38-61
 Run loop).  Given the arrival schedule, the parameter trajectory is
-fully determined.  On TPU (single controller, SPMD over a mesh) we
+fully determined.  Here (single controller, SPMD over a mesh) we
 reproduce exactly that math under an explicit deterministic schedule —
 round-robin by default, which is the steady state of equal-speed
 workers — so the modes are runnable, testable and bit-reproducible:
@@ -22,7 +22,7 @@ workers — so the modes are runnable, testable and bit-reproducible:
     with NO collectives (shard_map, params worker-varying);
   * a sync round is a sequential ``lax.scan`` over worker rows that
     threads the server state through the pairwise updates in arrival
-    order — the TPU image of the server's one-at-a-time Update() loop.
+    order — the mesh image of the server's one-at-a-time Update() loop.
 
 Per-mode sync math (verified against the reference sources):
 
@@ -224,7 +224,7 @@ def make_ps_round_step(
 ):
     """One PS round: ``inner_steps`` of LOCAL SGD per worker (no
     collectives — each worker trains its own model row on its own data
-    shard) followed by the sequential server sync round.  The TPU image
+    shard) followed by the sequential server sync round.  The mesh image
     of the reference's worker loop: train --sync-period frames, then
     Synchronize() (easgd-worker.cc:37, driven by
     aslp-nnet-train-lstm-stream-worker.cc).

@@ -1,11 +1,11 @@
 """SOD (sum-of-delta) outer training with a pluggable server optimizer.
 
-TPU-native equivalent of the reference's SOD worker/server pair
+JAX-native equivalent of the reference's SOD worker/server pair
 (reference: src/aslp-parallel/sod-worker.cc:37 + optimizer.h — workers
 push parameter deltas, the server applies them through SGD/Momentum/
 AdaGrad/RMSprop/AdaDelta/Adam).
 
-On TPU the "server" is just the replicated update applied to the
+Here the "server" is just the replicated update applied to the
 block-averaged delta: delta = avg(w_local) − w_global is fed through an
 optax transformation as if it were a gradient (sign-flipped)."""
 
@@ -14,11 +14,11 @@ from __future__ import annotations
 from typing import Any, Tuple
 
 import jax
-import optax
 
 
 class SodState:
-    def __init__(self, params: Any, optimizer: optax.GradientTransformation):
+    def __init__(self, params: Any,
+                 optimizer: "optax.GradientTransformation"):
         self.w_global = params
         self.optimizer = optimizer
         self.opt_state = optimizer.init(params)
@@ -30,6 +30,8 @@ def sod_sync(state: SodState, block_avg_params: Any) -> Tuple[Any, "SodState"]:
     neg_delta = jax.tree_util.tree_map(
         lambda g, w: w - g, block_avg_params, state.w_global
     )
+    import optax  # only the server-optimizer strategies need it
+
     updates, state.opt_state = state.optimizer.update(
         neg_delta, state.opt_state, state.w_global
     )

@@ -3,8 +3,8 @@
 The user-facing entry for real corpora (reference: the aslp_scripts
 run_*.sh chain over egs/<corpus>/s5 data dirs): reads wav.scp/text/
 utt2spk, extracts fbank features with per-speaker CMVN, and runs the
-CTC or hybrid pipeline.  The BASELINE.json configs (timit/rm/hkust/
-librispeech) are invocations of this with their data dirs; corpora are
+CTC or hybrid pipeline.  The reference's corpus configs (timit/rm/
+hkust/librispeech) are invocations of this with their data dirs; corpora are
 not downloadable in this environment, so CI exercises the same path on
 the synthesized yesno corpus.
 

@@ -1,6 +1,6 @@
 """Phone-CTC training recipe: the aslp_scripts/ctc chain.
 
-TPU-native equivalent of the reference CTC pipeline (reference:
+JAX-native equivalent of the reference CTC pipeline (reference:
 aslp_scripts/ctc/prepare_mono_phone_ctc.sh — phone labels shifted so
 blank=0 (aslp-ali-minus-one); train_scheduler_ctc.sh per-epoch CTC
 training; make_ctc_graph.sh TLG; Eesen-style decode).

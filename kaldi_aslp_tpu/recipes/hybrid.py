@@ -1,6 +1,6 @@
 """Hybrid NN-HMM training recipe: the run_dnn.sh / run_lstm.sh chain.
 
-TPU-native equivalent of the ASLP hybrid pipelines (reference:
+JAX-native equivalent of the ASLP hybrid pipelines (reference:
 aslp_scripts/aslp_nnet/run_dnn.sh, run_lstm.sh —
 prepare_feats_ali.sh targets → proto → train_scheduler.sh newbob loop →
 decode.sh with aslp-nnet-forward | latgen-faster-mapped →

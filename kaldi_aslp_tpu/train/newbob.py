@@ -1,6 +1,6 @@
 """Newbob learning-rate scheduling with accept/reject and resume markers.
 
-TPU-native equivalent of the reference's bash epoch controller
+JAX-native equivalent of the reference's bash epoch controller
 (reference: aslp_scripts/aslp_nnet/train_scheduler.sh:100-180 — per-epoch
 train, CV loss, accept/reject against the best model, LR halving gated by
 start/end improvement thresholds, resume from .learn_rate/.halving/

@@ -1,6 +1,6 @@
 """Layer-wise discriminative pretraining.
 
-TPU-native equivalent of the reference's pretraining chain (reference:
+JAX-native equivalent of the reference's pretraining chain (reference:
 aslp_scripts/aslp_nnet/pretrain.sh — grow the net one hidden layer per
 epoch via ``aslp-nnet-init hidden.conf - | aslp-nnet-insert``; component
 insertion + next-affine re-randomization in

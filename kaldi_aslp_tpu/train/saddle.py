@@ -30,7 +30,7 @@ the detector retires and newbob runs untouched.
 Reference role: the generic robustness machinery around CTC training in
 src/aslp-nnet/ctc-loss.cc:229-344 (loss-check modes that detect and
 skip divergent minibatches) — the reference detects pathology inside
-the loss; on TPU the pathological regime is the all-blank saddle and
+the loss; here the pathological regime is the all-blank saddle and
 the detector manages the lr schedule across it."""
 
 from __future__ import annotations

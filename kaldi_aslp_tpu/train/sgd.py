@@ -1,6 +1,6 @@
 """Per-component SGD with momentum / L1 / L2 / lr-coefs / max-norm.
 
-TPU-native equivalent of the reference's in-component update rule
+JAX-native equivalent of the reference's in-component update rule
 (reference: src/aslp-nnet/nnet-trnopts.h NnetTrainOptions —
 learn_rate/momentum/l1_penalty/l2_penalty; per-component
 learn_rate_coef / bias_learn_rate_coef and max_norm applied inside

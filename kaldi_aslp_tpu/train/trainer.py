@@ -1,6 +1,6 @@
 """Trainers: frame-level CE/MSE and sequence CTC training loops.
 
-TPU-native equivalents of the reference trainer binaries (reference:
+JAX-native equivalents of the reference trainer binaries (reference:
 src/aslp-nnetbin/aslp-nnet-train-simple.cc:31-371 full frame loop,
 aslp-nnet-train-ctc-streams.cc:118-204, the MPI worker loop
 aslp-parallelbin/aslp-nnet-train-lstm-stream-worker.cc).

@@ -1,6 +1,6 @@
 """Decision-tree state tying for context-dependent phones.
 
-TPU-native equivalent of the reference tree chain (reference:
+JAX-native equivalent of the reference tree chain (reference:
 src/bin/acc-tree-stats.cc — per (context-window, pdf-class) Gaussian
 stats from alignments; src/bin/cluster-phones.cc — automatic question
 generation by bottom-up phone clustering; src/tree/build-tree.{h,cc}

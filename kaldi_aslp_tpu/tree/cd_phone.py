@@ -2,7 +2,7 @@
 compilation and alignment conversion for context-dependent-phone (CTC /
 low-frame-rate) targets.
 
-TPU-native equivalents of the reference CD-phone tool family
+JAX-native equivalents of the reference CD-phone tool family
 (reference: src/aslp-bin/aslp-acc-tree-stats-cd-phone-kmeans.cc —
 per-phone-segment k-means into 3 sub-states, concatenated means as one
 Gaussian statistic per triphone context; aslp-acc-tree-stats-cd-phone-

@@ -1,6 +1,6 @@
 """Gaussian clustering primitives for tree building.
 
-TPU-native equivalent of the reference clustering layer (reference:
+JAX-native equivalent of the reference clustering layer (reference:
 src/tree/cluster-utils.{h,cc} — GaussClusterable, ClusterBottomUp,
 ObjfGivenStats; src/tree/clusterable-classes.h).
 

@@ -1,6 +1,6 @@
 """Config / flag system.
 
-TPU-native replacement for Kaldi's ParseOptions (reference:
+JAX-native replacement for Kaldi's ParseOptions (reference:
 src/util/parse-options.h): options dataclasses self-register flags,
 ``--config=FILE`` loads ``--name=value`` lines from a file, booleans accept
 true/false, and every CLI prints a usage string.  Unlike the reference

@@ -1,6 +1,6 @@
 """Logging with Kaldi-style severity and verbose levels.
 
-TPU-native replacement for the KALDI_LOG/KALDI_WARN/KALDI_ERR/KALDI_VLOG
+JAX-native replacement for the KALDI_LOG/KALDI_WARN/KALDI_ERR/KALDI_VLOG
 macro family (reference: src/base/kaldi-error.h).  Training loops emit the
 same structured progress lines the reference scheduler scripts grep for
 ("AvgLoss:", "FRAME_ACCURACY" — reference: src/aslp-nnet/nnet-loss.cc:179),

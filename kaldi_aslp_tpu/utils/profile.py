@@ -1,13 +1,13 @@
 """Profiling utilities.
 
-TPU-native equivalents of the reference's profiling hooks (reference:
+JAX-native equivalents of the reference's profiling hooks (reference:
 CuDevice::AccuProfile/PrintProfile src/aslp-cudamatrix/cu-device.h:87-88
 — per-op cumulative timers printed at exit; per-component Propagate
 timing nnet-nnet.cc:97-100 / GetComponentTime; frames/sec throughput
 logs aslp-nnet-train-simple.cc:245-250).
 
 Since everything under jit is fused, per-op host timers are meaningless
-on TPU; what carries over is (a) named region accumulation around
+on a device; what carries over is (a) named region accumulation around
 dispatch+sync boundaries, (b) the audio-seconds/s counter, (c) a hook
 into jax.profiler for real traces."""
 
@@ -57,7 +57,7 @@ class AccuProfiler:
 
 class ThroughputMeter:
     """frames/sec + audio-seconds/s counter (the reference's fps log and
-    BASELINE.json's primary metric)."""
+    bench.py's primary metric)."""
 
     def __init__(self, frame_shift_s: float = 0.01):
         self.frame_shift_s = frame_shift_s

@@ -1,6 +1,6 @@
 """Voice activity detection: frame FSM + energy / NN detectors.
 
-TPU-native equivalent of the reference VAD stack (reference:
+JAX-native equivalent of the reference VAD stack (reference:
 src/aslp-vad/vad.h:16-55 options + kSilence↔kSpeech FSM at vad.cc:34-80,
 VadAll :81, Lookback :87; energy-vad.h:27 EnergyVad; nnet-vad.cc:9-69
 NnetVad silence-posterior thresholding).

@@ -1,4 +1,4 @@
-"""Batched decoder + Pallas inference path tests."""
+"""Batched decoder tests."""
 
 import numpy as np
 import pytest
@@ -40,25 +40,3 @@ def test_batched_matches_single(rng):
         np.testing.assert_array_equal(ali_b, ali_s)
         assert score_b == pytest.approx(score_s, rel=1e-5)
 
-
-def test_pallas_inference_flag(rng):
-    """<Pallas> attr routes eval-mode apply through the kernel; train
-    mode keeps the differentiable scan."""
-    net = Nnet.from_proto(
-        "<LstmProjectedStreams> <InputDim> 8 <OutputDim> 16 "
-        "<CellDim> 24 <Pallas> true\n"
-        "<AffineTransform> <InputDim> 16 <OutputDim> 4 <ParamStddev> 0.1"
-    )
-    params = net.init(jax.random.PRNGKey(0))
-    x = jnp.asarray(rng.randn(2, 9, 8).astype(np.float32))
-    y_eval, _ = net.apply(params, x, train=False)
-    y_train, _ = net.apply(params, x, train=True)
-    np.testing.assert_allclose(np.asarray(y_eval), np.asarray(y_train),
-                               rtol=1e-5, atol=1e-6)
-    # gradient path still works (train mode)
-    def loss(p):
-        y, _ = net.apply(p, x, train=True)
-        return jnp.sum(y ** 2)
-    g = jax.grad(loss)(params)
-    assert all(np.isfinite(np.asarray(v)).all()
-               for v in jax.tree_util.tree_leaves(g))

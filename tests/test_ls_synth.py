@@ -20,4 +20,4 @@ def test_ls_synth_pipeline(tmp_path):
     assert out["rtf"] > 0
     assert out["wer_small"] < 60.0      # chance is ~100% on 20 words
     assert out["wer_large"] < 60.0
-    assert out["train_tput"] > 0
+    assert out["train_speed"] > 0
