@@ -21,7 +21,8 @@ One card runs four phases in order:
 
 ``--four-cards`` runs the device check and data-parallel training only:
 BSP on a 4-card ('data',) mesh and BMUF on a 2x2 ('block', 'data') mesh,
-each against the same update computed on one card.
+each against the same update computed on one card over the same streams
+(the whole global batch for BSP, each block's streams for BMUF).
 
 Every comparison prints its tolerance, precision and worst error, and
 every phase its compile and steady times.  The script exits nonzero, and
@@ -419,8 +420,10 @@ def phase_four_cards(devs, sz=FLAGSHIP, lr=TRAIN_LR, reps=10):
         return loss_fn, update, params
 
     def shards(bt, n):
+        """``bt`` cut into ``n`` equal runs of streams, on one card."""
+        m = bt[0].shape[0] // n
         return [jax.tree_util.tree_map(
-            lambda x: jax.device_put(x[k * S:(k + 1) * S], devs[0]), bt)
+            lambda x: jax.device_put(x[k * m:(k + 1) * m], devs[0]), bt)
             for k in range(n)]
 
     loss_fn, update, params = make(bf16=False)
@@ -443,13 +446,12 @@ def phase_four_cards(devs, sz=FLAGSHIP, lr=TRAIN_LR, reps=10):
             lambda: step(params, velocity, dev_batch, lr))
         say(f"  time BSP f32 step, 4 cards: first call (compile "
             f"included) {t1:.2f} s")
-        # reference: the same global-batch step on one card — the mean
-        # over the four shards of the shard loss and its gradient
-        vg = [grad_fn(params, sh) for sh in shards(batch, 4)]
-        loss1 = sum(v for v, _ in vg) / 4
-        g1 = jax.tree_util.tree_map(lambda *g: sum(g) / 4,
-                                    *[g for _, g in vg])
+        # reference: one step on one card over the whole global batch
+        (whole,) = shards(batch, 1)
+        loss1, g1 = grad_fn(params, whole)
         p1, v1 = upd(params, g1, velocity, lr)
+    frames = np.asarray(b.input_lengths).reshape(4, S).sum(1)
+    say(f"  frames per card: {frames.tolist()}")
     check("BSP loss, 4 cards vs 1 card, relative",
           abs(float(loss4) - float(loss1)) / abs(float(loss1)), 1e-5,
           "f32, matmul precision highest")
@@ -474,19 +476,16 @@ def phase_four_cards(devs, sz=FLAGSHIP, lr=TRAIN_LR, reps=10):
             lr))
         say(f"  time BMUF f32 block step, 4 cards: first call (compile "
             f"included) {t1:.2f} s")
-        # reference, block by block on one card: block k trains on
-        # shards 2k, 2k+1 (the mesh's block-major order)
-        sh = shards(batch, 4)
+        # reference, block by block on one card: block k trains on the
+        # streams of cards 2k and 2k+1 (the mesh's block-major order)
         blocks, last = [], []
-        for k in range(2):
+        for blk in shards(batch, 2):
             p, v = params, velocity
             for _ in range(inner):
-                vg = [grad_fn(p, sh[2 * k + j]) for j in range(2)]
-                g = jax.tree_util.tree_map(lambda a, c: (a + c) / 2,
-                                           vg[0][1], vg[1][1])
+                loss_k, g = grad_fn(p, blk)
                 p, v = upd(p, g, v, lr)
             blocks.append((p, v))
-            last.append((vg[0][0] + vg[1][0]) / 2)
+            last.append(loss_k)
     m, blr = opts.bmuf_momentum, opts.bmuf_learn_rate
     tm = jax.tree_util.tree_map
     p_avg = tm(lambda a, c: (a + c) / 2, blocks[0][0], blocks[1][0])

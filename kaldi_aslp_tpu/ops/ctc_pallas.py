@@ -3,12 +3,13 @@
 Replaces (reference) the per-timestep CUDA kernel launches of
 cuda_compute_ctc_alpha/beta (src/aslp-cudamatrix/cu-kernels.h:502-517,
 dispatched from ctc-loss.cc:115 EvalParallel).  The layout is warp-ctc's:
-each program owns a few streams and runs the whole time loop inside the
+each program owns one stream and runs the whole time loop inside the
 kernel, so the 2·T serial steps of a batch cost one launch instead of
 one loop iteration (and its kernels) per step; a second grid axis runs
-the alpha and beta recursions of a group side by side.
+the alpha and beta recursions of a stream side by side.  One stream per
+program beat two and four at both the flagship shape and T=3000 (PERF.md).
 
-Per program: the [G, U'] row of the recursion lives in registers; each
+Per program: the [1, U'] row of the recursion lives in registers; each
 step's row is written to the [T, S, U'] output the custom VJP in
 ops/ctc.py consumes, and the shift by 1 and by 2 along U' is a masked
 reload of the row just stored (a block barrier separates the store from
@@ -27,20 +28,16 @@ from jax.experimental.pallas import triton as plgpu
 
 from kaldi_aslp_tpu.ops.ctc import NEG_INF, _lse3, _shift_left
 
-# streams per program: one, so the flagship batch (128 streams, two
-# directions) runs as 256 programs, about two per SM
-STREAMS_PER_PROGRAM = 1
-
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
-def _num_warps(rows: int, width: int) -> int:
+def _num_warps(width: int) -> int:
     """One warp per 256 row elements, 1 to 8: the row is a handful of
     registers per thread, and fewer warps make the per-step barrier
     cheaper."""
-    return max(1, min(8, rows * width // 256))
+    return max(1, min(8, width // 256))
 
 
 def _shifted(out_ref, t, rows, u, k, width, extra_mask=None):
@@ -124,9 +121,9 @@ def _beta(in_len_ref, exp_len_ref, lp_ref, skip2_ref, out_ref, width,
 
 def _kernel(in_len_ref, exp_len_ref, lp_ref, skip_ref, skip2_ref,
             alpha_ref, beta_ref, *, width, interpret):
-    """Grid (stream groups, 2): the second grid axis picks the direction,
-    so a group's alpha and beta recursions run at the same time on
-    different SMs."""
+    """Grid (streams, 2): the second grid axis picks the direction, so a
+    stream's alpha and beta recursions run at the same time on different
+    SMs."""
     @pl.when(pl.program_id(1) == 0)
     def _():
         _alpha(in_len_ref, lp_ref, skip_ref, alpha_ref, width, interpret)
@@ -137,51 +134,45 @@ def _kernel(in_len_ref, exp_len_ref, lp_ref, skip_ref, skip2_ref,
               interpret)
 
 
-@partial(jax.jit, static_argnames=("streams_per_program", "interpret"))
+@partial(jax.jit, static_argnames=("interpret",))
 def ctc_alpha_beta_pallas(
     lp_t: jnp.ndarray,           # [T, S, U'] emission scores (NEG_INF masked)
     skip_ok: jnp.ndarray,        # [S, U'] skip-transition mask
     input_lengths: jnp.ndarray,  # [S]
     exp_lens: jnp.ndarray,       # [S] expanded label lengths (2U+1)
-    streams_per_program: int = STREAMS_PER_PROGRAM,
     interpret: bool = False,
 ):
     """Returns (alphas [T, S, U'], betas [T, S, U']), equal to
-    ops/ctc.py ``alpha_beta_scan`` on the same arguments.  S is padded to
-    a multiple of ``streams_per_program`` (a power of two) and U' to a
-    power of two."""
+    ops/ctc.py ``alpha_beta_scan`` on the same arguments.  U' is padded
+    to a power of two."""
     T, S, width = lp_t.shape
-    G = streams_per_program
     Up = _next_pow2(width)
-    S_pad = -(-S // G) * G
-    pad_s, pad_u = S_pad - S, Up - width
+    pad_u = Up - width
     input_lengths = input_lengths.astype(jnp.int32)
     exp_lens = exp_lens.astype(jnp.int32)
     skip2 = _shift_left(skip_ok, 2)
-    if pad_s or pad_u:
-        lp_t = jnp.pad(lp_t, ((0, 0), (0, pad_s), (0, pad_u)),
+    if pad_u:
+        lp_t = jnp.pad(lp_t, ((0, 0), (0, 0), (0, pad_u)),
                        constant_values=NEG_INF)
-        skip_ok = jnp.pad(skip_ok, ((0, pad_s), (0, pad_u)))
-        skip2 = jnp.pad(skip2, ((0, pad_s), (0, pad_u)))
-        input_lengths = jnp.pad(input_lengths, (0, pad_s))
-        exp_lens = jnp.pad(exp_lens, (0, pad_s), constant_values=1)
+        skip_ok = jnp.pad(skip_ok, ((0, 0), (0, pad_u)))
+        skip2 = jnp.pad(skip2, ((0, 0), (0, pad_u)))
 
-    rows = pl.BlockSpec((G,), lambda i, d: (i,))
-    row_block = pl.BlockSpec((G, Up), lambda i, d: (i, 0))
-    time_block = pl.BlockSpec((T, G, Up), lambda i, d: (0, i, 0))
+    rows = pl.BlockSpec((1,), lambda i, d: (i,))
+    row_block = pl.BlockSpec((1, Up), lambda i, d: (i, 0))
+    time_block = pl.BlockSpec((T, 1, Up), lambda i, d: (0, i, 0))
     # under shard_map the rows vary over the same mesh axes as lp_t
-    out = jax.ShapeDtypeStruct((T, S_pad, Up), jnp.float32,
+    out = jax.ShapeDtypeStruct((T, S, Up), jnp.float32,
                                vma=jax.typeof(lp_t).vma)
     alphas, betas = pl.pallas_call(
         partial(_kernel, width=width, interpret=interpret),
-        grid=(S_pad // G, 2),
+        grid=(S, 2),
         in_specs=[rows, rows, time_block, row_block, row_block],
         out_specs=[time_block, time_block],
         out_shape=[out, out],
         backend="triton",
         compiler_params=plgpu.CompilerParams(
-            num_warps=_num_warps(G, Up), num_stages=1),
+            num_warps=_num_warps(Up), num_stages=1),
         interpret=interpret,
         name="ctc_alpha_beta",
     )(input_lengths, exp_lens, lp_t, skip_ok, skip2)
-    return alphas[:, :S, :width], betas[:, :S, :width]
+    return alphas[..., :width], betas[..., :width]

@@ -107,6 +107,8 @@ def make_bmuf_block_step(
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
+    from kaldi_aslp_tpu.parallel.bsp import global_mean
+
     opts = opts or BmufOptions()
     m, blr = opts.bmuf_momentum, opts.bmuf_learn_rate
 
@@ -127,7 +129,7 @@ def make_bmuf_block_step(
 
             def global_loss(pp):
                 loss, aux = loss_fn(pp, b)
-                return jax.lax.pmean(loss, data_axis), aux
+                return global_mean(loss, aux, data_axis), aux
 
             (loss, _aux), grads = jax.value_and_grad(
                 global_loss, has_aux=True)(p)

@@ -8,7 +8,12 @@ every step: the model stays replicated, the batch is sharded over the
 differentiating the pmean'd loss (XLA auto-inserts the backward psum for
 replicated params), replacing the GPU→CPU→MPI→CPU→GPU staging
 (mpi-node.h:77-92).  With sync every step this is mathematically the
-reference's BSP with sync_period = minibatch."""
+reference's BSP with sync_period = minibatch.
+
+Losses that are means over frames (ctc_batch_loss, xent_loss) report
+their frame count as ``aux["frames"]``; the shards are then weighted by
+it, so a step over shards of unequal length equals the one-card step
+over the whole batch."""
 
 from __future__ import annotations
 
@@ -17,6 +22,17 @@ from typing import Any, Callable
 import jax
 from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+
+def global_mean(loss, aux, axis):
+    """The loss over the whole batch from each shard's ``loss``: the
+    shards weighted by ``aux["frames"]`` where the loss reports it,
+    else equally."""
+    if isinstance(aux, dict) and "frames" in aux:
+        frames = aux["frames"]
+        return (jax.lax.psum(loss * frames, axis)
+                / jax.lax.psum(frames, axis))
+    return jax.lax.pmean(loss, axis)
 
 
 def make_bsp_train_step(
@@ -33,16 +49,17 @@ def make_bsp_train_step(
 
     Returns step(params, opt_state, batch, learn_rate) →
     (params, opt_state, loss, aux); params/opt_state replicated, batch
-    sharded on its leading axis.  The gradient of the pmean'd loss IS the
-    global-batch gradient (backward psum inserted automatically for the
-    replicated params), so no manual gradient collective is needed."""
+    sharded on its leading axis.  The gradient of the global loss
+    (``global_mean``) IS the global-batch gradient (backward psum
+    inserted automatically for the replicated params), so no manual
+    gradient collective is needed."""
     if batch_spec is None:
         batch_spec = P(axis)
 
     def shard_step(params, opt_state, batch, learn_rate):
         def global_loss(p):
             loss, aux = loss_fn(p, batch)
-            return jax.lax.pmean(loss, axis), aux
+            return global_mean(loss, aux, axis), aux
         (loss, aux), grads = jax.value_and_grad(
             global_loss, has_aux=True
         )(params)

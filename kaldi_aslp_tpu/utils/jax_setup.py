@@ -23,14 +23,13 @@ CACHE_ENV = "JAX_COMPILATION_CACHE_DIR"
 DEFAULT_CACHE_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
 
 
-def configure_compile_cache(default_dir: Optional[os.PathLike] = None
-                            ) -> str:
+def configure_compile_cache() -> str:
     """Point JAX's compilation cache at its directory; returns it."""
     if os.environ.get(CACHE_ENV):
         return os.environ[CACHE_ENV]
     import jax
 
-    path = str(default_dir or DEFAULT_CACHE_DIR)
+    path = str(DEFAULT_CACHE_DIR)
     jax.config.update("jax_compilation_cache_dir", path)
     return path
 

@@ -100,6 +100,48 @@ def test_bmuf_block_step_matches_manual_simulation(rng):
                            np.asarray(opt2["w"])[1])
 
 
+def test_bmuf_block_step_weights_data_shards_by_frames(rng):
+    """Inside a block, cards with unequal frame counts: each block's
+    inner step is the one-device step over the block's frames."""
+    mesh = make_mesh(("block", "data"), devices=jax.devices()[:4],
+                     shape=(2, 2))
+    params, vel0, _, update_fn = _setup(rng)
+
+    def loss_fn(p, batch):
+        err = (batch["x"] @ p["w"] - batch["y"]) ** 2
+        frames = batch["f"].sum()
+        return (err * batch["f"]).sum() / frames, {"frames": frames}
+
+    S = 16
+    batch = {
+        "x": jnp.asarray(rng.randn(S, 8).astype(np.float32)),
+        "y": jnp.asarray(rng.randn(S).astype(np.float32)),
+        # the four cards keep 1, 4, 2 and 3 of their 4 frames
+        "f": jnp.asarray((np.arange(S) % 4 < np.repeat([1, 4, 2, 3], 4))
+                         .astype(np.float32)),
+    }
+    opts = BmufOptions(bmuf_momentum=0.0, bmuf_learn_rate=1.0,
+                       nesterov=False)
+    step = make_bmuf_block_step(loss_fn, update_fn, mesh, opts,
+                                inner_steps=1)
+    sharded = jax.tree_util.tree_map(
+        lambda a: jax.device_put(
+            a, NamedSharding(mesh, P(("block", "data")))), batch)
+    lr = jnp.float32(0.05)
+    zeros = jax.tree_util.tree_map(jnp.zeros_like, params)
+    w2, *_ = step(params, params, zeros, stack_block_states(vel0, 2),
+                  sharded, lr)
+
+    grad = jax.grad(lambda p, b: loss_fn(p, b)[0])
+    blocks = []
+    for k in range(2):
+        half = jax.tree_util.tree_map(lambda a: a[8 * k:8 * (k + 1)], batch)
+        blocks.append(update_fn(params, grad(params, half), vel0, lr)[0])
+    want = (np.asarray(blocks[0]["w"]) + np.asarray(blocks[1]["w"])) / 2
+    np.testing.assert_allclose(np.asarray(w2["w"]), want, rtol=1e-5,
+                               atol=1e-6)
+
+
 def test_per_host_input_sharding():
     """split_data_dir's round-robin shard per process index is
     disjoint, complete, and deterministic (the per-worker scp shard

@@ -28,15 +28,16 @@ interpreted = partial(ctc_alpha_beta_pallas, interpret=True)
 
 
 def _case(name):
-    """(logits, labels, input lengths, label lengths, streams/program)."""
+    """(logits, labels, input lengths, label lengths)."""
     rs = np.random.RandomState(sum(map(ord, name)))
-    S, T, V, U, G = {
-        "ragged": (4, 18, 9, 5, 1),
-        "zero_length_label": (3, 9, 6, 3, 1),
-        "repeated_labels": (3, 16, 5, 6, 1),
-        "width_not_pow2": (2, 12, 8, 6, 1),
-        "streams_not_multiple_of_group": (5, 14, 7, 4, 4),
-        "tight_fit": (2, 6, 5, 3, 2),
+    S, T, V, U = {
+        "ragged": (4, 18, 9, 5),
+        "zero_length_label": (3, 9, 6, 3),
+        "repeated_labels": (3, 16, 5, 6),
+        "width_not_pow2": (2, 12, 8, 6),
+        "full_lengths": (5, 14, 7, 6),
+        "tight_fit": (2, 6, 5, 3),
+        "single_frame": (3, 1, 6, 2),
     }[name]
     logits = rs.randn(S, T, V).astype(np.float32)
     labels = rs.randint(1, V, (S, U)).astype(np.int32)
@@ -53,17 +54,22 @@ def _case(name):
         labels = np.int32([[3, 3, 3, 4, 4, 1], [2, 2, 1, 1, 2, 2],
                            [1, 2, 1, 2, 3, 3]])
         lab_lens = np.int32([6, 6, 4])
+    if name == "full_lengths":
+        in_lens, lab_lens = np.full(S, T, np.int32), np.full(S, U, np.int32)
+    if name == "single_frame":
+        # one frame: blank or one label fits, two labels cannot
+        in_lens, lab_lens = np.int32([1, 1, 1]), np.int32([0, 1, 2])
     if name == "tight_fit":
         # the shortest inputs that can emit the labels (a repeat needs
         # a blank between its copies)
         labels = np.int32([[1, 1, 2], [3, 4, 4]])
         lab_lens, in_lens = np.int32([3, 2]), np.int32([4, 2])
     return (jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(in_lens),
-            jnp.asarray(lab_lens), G)
+            jnp.asarray(lab_lens))
 
 
 CASES = ["ragged", "zero_length_label", "repeated_labels",
-         "width_not_pow2", "streams_not_multiple_of_group", "tight_fit"]
+         "width_not_pow2", "full_lengths", "tight_fit", "single_frame"]
 
 
 def _assert_log_space_close(x, y, rtol, name):
@@ -76,29 +82,29 @@ def _assert_log_space_close(x, y, rtol, name):
 
 
 def _compare_recursions(case, kernel, rtol):
-    logits, labels, in_lens, lab_lens, G = _case(case)
+    logits, labels, in_lens, lab_lens = _case(case)
     log_probs = jax.nn.log_softmax(logits, -1)
     lp_t, skip_ok, exp_lens, _, _ = ctc_inputs(log_probs, labels, lab_lens)
     a_ref, b_ref = alpha_beta_scan(lp_t, skip_ok, in_lens, exp_lens)
-    a, b = kernel(lp_t, skip_ok, in_lens, exp_lens, streams_per_program=G)
+    a, b = kernel(lp_t, skip_ok, in_lens, exp_lens)
     assert a.shape == a_ref.shape and b.shape == b_ref.shape
     _assert_log_space_close(a, a_ref, rtol, "alpha")
     _assert_log_space_close(b, b_ref, rtol, "beta")
     nll_ref = ctc_alpha_beta(log_probs, labels, in_lens, lab_lens,
                              recursion=alpha_beta_scan)[0]
     nll = ctc_alpha_beta(log_probs, labels, in_lens, lab_lens,
-                         recursion=partial(kernel, streams_per_program=G))[0]
+                         recursion=kernel)[0]
     np.testing.assert_allclose(np.asarray(nll), np.asarray(nll_ref),
                                rtol=rtol)
 
 
 def _compare_grads(case, kernel, rtol):
-    logits, labels, in_lens, lab_lens, G = _case(case)
+    logits, labels, in_lens, lab_lens = _case(case)
 
     def total(lg, rec):
         return ctc_loss(lg, labels, in_lens, lab_lens, 0, rec).sum()
     g_ref = jax.grad(total)(logits, alpha_beta_scan)
-    g = jax.grad(total)(logits, partial(kernel, streams_per_program=G))
+    g = jax.grad(total)(logits, kernel)
     assert np.isfinite(np.asarray(g)).all()
     np.testing.assert_allclose(np.asarray(g), np.asarray(g_ref),
                                rtol=rtol, atol=rtol)
@@ -111,7 +117,7 @@ def test_interpreted_kernel_matches_scan(case):
 
 
 @pytest.mark.parametrize("case", ["ragged", "repeated_labels",
-                                  "streams_not_multiple_of_group"])
+                                  "single_frame"])
 def test_interpreted_kernel_gradient_through_custom_vjp(case):
     _compare_grads(case, interpreted, rtol=1e-6)
 
@@ -130,7 +136,7 @@ def test_default_recursion_follows_backend(monkeypatch):
 
 
 def test_ctc_loss_takes_default_recursion(monkeypatch):
-    logits, labels, in_lens, lab_lens, _ = _case("ragged")
+    logits, labels, in_lens, lab_lens = _case("ragged")
     calls = []
 
     def spy(*args):
@@ -155,7 +161,7 @@ def _sharded_loss(recursion, check_vma):
 
 
 def test_kernel_traces_under_shard_map_with_vma_checks():
-    logits, labels, in_lens, lab_lens, _ = _case("ragged")
+    logits, labels, in_lens, lab_lens = _case("ragged")
     jaxpr = jax.make_jaxpr(_sharded_loss(interpreted, True))(
         logits, labels, in_lens, lab_lens)
     assert "pallas_call" in str(jaxpr)
@@ -165,7 +171,7 @@ def test_interpreted_kernel_under_shard_map_matches_scan():
     # the interpreter evaluates kernel bodies without mesh-axis types,
     # so this numeric check runs with vma checks off (the compiled
     # kernel is checked with them on in the gpu test below)
-    args = _case("ragged")[:4]
+    args = _case("ragged")
     loss_ref, g_ref = _sharded_loss(alpha_beta_scan, False)(*args)
     loss, g = _sharded_loss(interpreted, False)(*args)
     np.testing.assert_allclose(float(loss), float(loss_ref), rtol=1e-6)
@@ -190,7 +196,7 @@ def test_compiled_kernel_gradient(gpu, case):
 @pytest.mark.gpu
 def test_compiled_kernel_under_shard_map(gpu):
     mesh = make_mesh(("data",), devices=jax.devices()[:1])
-    args = _case("ragged")[:4]
+    args = _case("ragged")
 
     def run(rec):
         def local(lg, lab, il, ll):

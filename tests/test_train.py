@@ -165,6 +165,48 @@ def test_bsp_data_parallel_matches_single_device(rng):
                                    rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("reports_frames", [True, False])
+def test_bsp_weights_shards_by_their_frames(rng, reports_frames):
+    """Shards of unequal frame counts: a loss that reports its frames
+    gives the one-device step over the whole batch; one that does not
+    gives the equal-weight mean of the shard losses."""
+    net = Nnet.from_proto(PROTO)
+    params = net.init(jax.random.PRNGKey(4))
+    x, y = _toy_data(rng, n=64)
+    # shard k keeps k + 1 of its 8 frames
+    w = (np.arange(64) % 8 < np.repeat(np.arange(8) + 1, 8)).astype(
+        np.float32)
+    data = {"x": jnp.asarray(x), "y": jnp.asarray(y), "w": jnp.asarray(w)}
+
+    def loss_fn(p, batch):
+        out, _ = net.apply(p, batch["x"])
+        loss, aux = xent_loss(out, batch["y"], batch["w"])
+        return loss, (aux if reports_frames else 0.0)
+
+    update = make_sgd_update(net, NnetTrainOptions())
+    velocity = init_velocity(params)
+    lr = jnp.asarray(0.1, jnp.float32)
+    mesh = make_mesh(("data",))
+    step = make_bsp_train_step(loss_fn, update, mesh)
+    p_dp, _, loss_dp, _ = step(params, velocity, shard_batch(data, mesh), lr)
+
+    grad = jax.value_and_grad(lambda p, b: loss_fn(p, b)[0])
+    if reports_frames:
+        loss_ref, g_ref = grad(params, data)
+    else:
+        parts = [grad(params, jax.tree_util.tree_map(
+            lambda a: a[8 * k:8 * (k + 1)], data)) for k in range(8)]
+        loss_ref = sum(v for v, _ in parts) / 8
+        g_ref = jax.tree_util.tree_map(lambda *g: sum(g) / 8,
+                                       *[g for _, g in parts])
+    p_ref, _ = update(params, g_ref, velocity, lr)
+    np.testing.assert_allclose(float(loss_dp), float(loss_ref), rtol=1e-5)
+    for a, b in zip(jax.tree_util.tree_leaves(p_dp),
+                    jax.tree_util.tree_leaves(p_ref)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=1e-4, atol=1e-5)
+
+
 def test_bmuf_sync(rng):
     params = {"w": jnp.asarray(rng.randn(4, 4).astype(np.float32))}
     state = BmufState(params)
